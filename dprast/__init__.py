@@ -1,10 +1,10 @@
-"""dprast — TPU-native differentiable point rasterisation.
+"""dprast — differentiable point rasterisation in JAX.
 
-A brand-new JAX/Pallas framework with the capabilities of
-DiffPointRasterisation.jl (see /root/reference): multilinear splatting of
-rigidly transformed point clouds into N-dimensional grids, with an analytic
-pullback for all six inputs, wrapped in `jax.custom_vjp` so `jax.grad` just
-works, and scaled over TPU device meshes with `shard_map` collectives.
+A JAX framework with the capabilities of DiffPointRasterisation.jl:
+multilinear splatting of rigidly transformed point clouds into
+N-dimensional grids, with an analytic pullback for all six inputs, wrapped
+in `jax.custom_vjp` so `jax.grad` just works, and scaled over device meshes
+with `shard_map` collectives.
 
 Public API (mirrors the reference's three exported functions,
 reference `src/DiffPointRasterisation.jl:17`):

@@ -2,9 +2,11 @@
 
 This is the JAX-native equivalent of the reference's ChainRulesCore rrules
 (`ext/DiffPointRasterisationChainRulesCoreExt.jl:6-92`): the forward runs the
-selected backend, residuals are just the six inputs (recompute-not-cache, as
-in the reference `src/raster_pullback.jl:20-22`), and the backward calls the
-analytic pullback of the same backend.
+selected backend and the backward calls the analytic pullback of the same
+backend.  A backend with a fused pair (`dispatch.vjp_pair`) keeps its
+neighbour geometry as residuals; otherwise the residuals are just the six
+inputs (recompute-not-cache, as in the reference
+`src/raster_pullback.jl:20-22`).
 """
 
 from __future__ import annotations
@@ -16,59 +18,37 @@ import jax
 from dprast.ops import dispatch
 
 
-def _normalize(backend):
-    """Backend spec -> (fwd_name, bwd_name): a plain name applies to both
-    directions; a pair mixes strategies (`dispatch.resolve_pair`)."""
-    if isinstance(backend, str):
-        return backend, backend
-    return backend
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
-def raster_canonical(grid_size, backend, pw_uniform, points, rotation,
-                     translation, background, out_weight, point_weight):
+@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
+def raster_canonical(grid_size, backend, points, rotation, translation,
+                     background, out_weight, point_weight):
     """Forward rasterisation on canonical batched args → (B, *grid_size).
 
-    `grid_size` (tuple of python ints), `backend` (a resolved name, or a
-    static (forward, backward) name pair) and `pw_uniform` (the static
-    promise that point_weight is a broadcast scalar — the API sets it
-    when the argument was defaulted, mirroring the reference's lazy
-    `Ones` FillArray defaults, `src/interface.jl:368-394`) are static;
-    the six array args are differentiable.
+    `grid_size` (tuple of python ints) and `backend` (a resolved name) are
+    static; the six array args are differentiable.
     """
-    fwd_name, _ = _normalize(backend)
-    return dispatch.fwd_fn(fwd_name)(grid_size, points, rotation,
-                                     translation, background, out_weight,
-                                     point_weight, pw_uniform=pw_uniform)
+    return dispatch.fwd_fn(backend)(grid_size, points, rotation, translation,
+                                    background, out_weight, point_weight)
 
 
-def _fwd(grid_size, backend, pw_uniform, points, rotation, translation,
-         background, out_weight, point_weight):
-    fwd_name, bwd_name = _normalize(backend)
+def _fwd(grid_size, backend, points, rotation, translation, background,
+         out_weight, point_weight):
     args = (points, rotation, translation, background, out_weight,
             point_weight)
-    pair = dispatch.vjp_pair(fwd_name) if fwd_name == bwd_name else None
+    pair = dispatch.vjp_pair(backend)
     if pair is None:
-        out = raster_canonical(grid_size, backend, pw_uniform, *args)
-        return out, (None, args)
-    # fused pair: the forward emits reusable residuals (e.g. the binned
-    # backend's sorted slot frame) so the pullback skips repeated prep.
+        return raster_canonical(grid_size, backend, *args), (None, args)
     # `_fwd` only runs under differentiation — plain forward calls take
     # the residual-free primal path above.
-    out, res = pair[0](grid_size, *args, pw_uniform=pw_uniform)
+    out, res = pair[0](grid_size, *args)
     return out, (res, args)
 
 
-def _bwd(grid_size, backend, pw_uniform, residuals, ds_dout):
-    fwd_name, bwd_name = _normalize(backend)
+def _bwd(grid_size, backend, residuals, ds_dout):
     res, args = residuals
-    pair = dispatch.vjp_pair(fwd_name) if fwd_name == bwd_name else None
-    if pair is None or res is None:
-        grads = dispatch.bwd_fn(bwd_name)(grid_size, *args, ds_dout,
-                                          pw_uniform=pw_uniform)
+    if res is None:
+        grads = dispatch.bwd_fn(backend)(grid_size, *args, ds_dout)
     else:
-        grads = pair[1](grid_size, res, args, ds_dout,
-                        pw_uniform=pw_uniform)
+        grads = dispatch.vjp_pair(backend)[1](grid_size, res, args, ds_dout)
     # PullbackResult field order == canonical argument order.
     return tuple(grads)
 

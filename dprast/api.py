@@ -138,12 +138,6 @@ def _normalise(grid_size, points, rotation, translation, background,
     if point_weight is None:
         point_weight = 1.0
     point_weight = jnp.asarray(point_weight)
-    # STATIC fast-path flag: a defaulted or scalar point_weight is a
-    # broadcast constant (the reference's lazy `Ones` FillArray,
-    # `src/interface.jl:368-394`) — backends may then drop the per-point
-    # weight plane from their data path.  Computed here, after coercion,
-    # so exotic inputs hit the friendly shape errors first.
-    pw_uniform = point_weight.ndim == 0
     if point_weight.ndim == 0:
         point_weight = jnp.broadcast_to(point_weight, (n_points,))
     elif point_weight.ndim != 1 or point_weight.shape[0] != n_points:
@@ -162,7 +156,7 @@ def _normalise(grid_size, points, rotation, translation, background,
         a.astype(dtype)
         for a in (points, rotation, translation, background, out_weight,
                   point_weight))
-    return grid_size, args, batched, pw_uniform
+    return grid_size, args, batched
 
 
 def raster(grid_size, points, rotation, translation, background=None,
@@ -187,19 +181,17 @@ def raster(grid_size, points, rotation, translation, background=None,
       out_weight: scalar — or (B,) per pose. Default 1.
       point_weight: scalar or (P,) per point. Default 1.
       dtype: result dtype; defaults to the promoted input dtype (>= float32).
-      backend: 'auto' | 'xla' | 'matmul' | 'matmul_bf16' | 'binned' |
-        'binned_bf16' kernel strategy ('auto' may resolve the forward
-        and backward to different strategies, `dispatch.resolve_pair`;
-        the `_bf16` modes are documented ~2e-3 fast modes).
+      backend: 'auto' | 'xla' | 'matmul' | 'matmul_bf16' kernel strategy
+        (`dispatch.resolve`; 'matmul_bf16' is `matmul` with ~2e-3
+        relative error).
 
     Returns:
       (*grid_size) array for a single pose, (B, *grid_size) for a batch.
     """
-    grid_size, args, batched, pw_uniform = _normalise(
+    grid_size, args, batched = _normalise(
         grid_size, points, rotation, translation, background, out_weight,
         point_weight, dtype)
-    resolved = dispatch.resolve_pair(backend, len(grid_size), grid_size,
-                                     args[0].shape[0])
+    resolved = dispatch.resolve(backend, len(grid_size))
     if args[0].shape[0] == 0:
         # empty cloud: the background image (all backends chunk by points)
         b = args[1].shape[0]
@@ -207,7 +199,7 @@ def raster(grid_size, points, rotation, translation, background=None,
             args[3].reshape((b,) + (1,) * len(grid_size)),
             (b,) + grid_size)
         return out if batched else out[0]
-    out = ad.raster_canonical(grid_size, resolved, pw_uniform, *args)
+    out = ad.raster_canonical(grid_size, resolved, *args)
     return out if batched else out[0]
 
 
@@ -226,22 +218,18 @@ def raster_pullback(ds_dout, points, rotation, translation, background=None,
     ds_dout = jnp.asarray(ds_dout)
     bg_scalar = background is None or jnp.ndim(background) == 0
     ow_scalar = out_weight is None or jnp.ndim(out_weight) == 0
-    grid_size, args, batched, pw_uniform = _normalise(
+    pw_scalar = point_weight is not None and jnp.ndim(point_weight) == 0
+    grid_size, args, batched = _normalise(
         tuple(ds_dout.shape[1:] if jnp.ndim(rotation) == 3 else ds_dout.shape),
         points, rotation, translation, background, out_weight, point_weight,
         dtype)
-    # the backend fast path's d_pw is only sum-exact, so take it ONLY
-    # when the summing below applies (user passed a SCALAR weight); a
-    # defaulted None still gets the exact per-point d_pw vector
-    pw_scalar = point_weight is not None and pw_uniform
     if not batched:
         ds_dout = ds_dout[None]
     if ds_dout.shape != (args[1].shape[0],) + grid_size:
         raise ValueError(
             f"ds_dout shape {ds_dout.shape} does not match output shape "
             f"{(args[1].shape[0],) + grid_size}")
-    _, resolved = dispatch.resolve_pair(backend, len(grid_size), grid_size,
-                                        args[0].shape[0])
+    resolved = dispatch.resolve(backend, len(grid_size))
     if args[0].shape[0] == 0:
         b = args[1].shape[0]
         g = ds_dout.astype(args[0].dtype)
@@ -251,8 +239,7 @@ def raster_pullback(ds_dout, points, rotation, translation, background=None,
                jnp.zeros((0,), args[0].dtype))
     else:
         res = dispatch.bwd_fn(resolved)(grid_size, *args,
-                                        ds_dout.astype(args[0].dtype),
-                                        pw_uniform=pw_scalar)
+                                        ds_dout.astype(args[0].dtype))
     d_points, d_rot, d_trans, d_bg, d_ow, d_pw = res
     if not batched:
         d_rot, d_trans = d_rot[0], d_trans[0]

@@ -1,2 +1,2 @@
-"""Compute kernels: geometry helpers, pure-jnp oracle, MXU matmul-splat path,
-and Pallas TPU kernels."""
+"""Compute kernels: geometry helpers, the XLA scatter/gather backend and the
+one-hot contraction backend, and the registry that selects between them."""

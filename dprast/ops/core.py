@@ -1,10 +1,20 @@
 """Pure-jnp reference implementation (the oracle, and the any-dims fallback).
 
-Works for any static (N_in, N_out) with N_in >= N_out, on CPU and TPU.  The
-forward uses an XLA scatter-add with `mode='drop'` (the TPU-native stand-in
-for the reference's atomic adds, reference `src/raster.jl:64`); the pullback
-is a pure gather and therefore needs no conflict resolution at all
-(reference `src/raster_pullback.jl:39-73`).
+Works for any static (N_in, N_out) with N_in >= N_out, on CPU and GPU.  The
+forward uses an XLA scatter-add with `mode='drop'`, which XLA lowers to
+atomic adds on the GPU — the reference's own CUDA forward
+(`src/raster.jl:64`, `Atomix.@atomic`).  The pullback is a pure gather plus
+reductions and therefore needs no conflict resolution at all (reference
+`src/raster_pullback.jl:39-73`; its CUDA kernel,
+`ext/DiffPointRasterisationCUDAExt.jl:19-210`, does the same gather with
+hand-written shared-memory reductions).
+
+Because the GPU scatter-add uses atomics, the order of each output sum
+changes from run to run; results agree to float32 rounding, not bit for
+bit.  `XLA_FLAGS=--xla_gpu_deterministic_ops=true` makes repeats bitwise
+equal, but XLA then serialises the scatter: the 128^2 x 8 poses x 1e5
+points forward took ~34 s instead of ~0.8 ms on an H100 (PERF.md) — an
+option for debugging, not for training.
 
 All functions here take *canonical batched* arguments:
 
@@ -52,8 +62,7 @@ def _neighbour_data(points, rotation, translation, grid_size):
     shifts = jnp.asarray(geometry.voxel_shifts(n_out))
     # compensated double-f32 coordinates: a plain-f32 transform has
     # ~n/2*2^-23 absolute coordinate error (3e-5 at n=1024) — above the
-    # 1e-5 parity contract on the huge grids auto-dispatch routes HERE
-    # (sparse volumes beyond the binned backend's tile bound).
+    # 1e-5 parity contract on its own.
     r0, dl = geometry.pose_voxel_and_deltas(points, rotation, translation,
                                             grid_size)
     idx = r0[..., None, :] + shifts  # (B, P, S, N_out)
@@ -70,16 +79,13 @@ def _neighbour_data(points, rotation, translation, grid_size):
 
 
 def raster_fwd(grid_size, points, rotation, translation, background,
-               out_weight, point_weight, *, pw_uniform: bool = False):
+               out_weight, point_weight):
     """Forward rasterisation on canonical batched args → (B, *grid_size).
 
     Semantics per reference `src/raster.jl:5-66`: output initialised to the
     per-pose background, every point splats ``out_weight[b] * point_weight[p]``
     multilinearly onto its 2^N neighbours, OOB neighbours dropped.
-    (`pw_uniform` is accepted for dispatch uniformity; the O(splats)
-    weight multiply is fused into the scatter operand here either way.)
     """
-    del pw_uniform
     out, _ = raster_fwd_res(grid_size, points, rotation, translation,
                             background, out_weight, point_weight)
     # (the unused residuals are dead code XLA eliminates)
@@ -87,7 +93,7 @@ def raster_fwd(grid_size, points, rotation, translation, background,
 
 
 def raster_fwd_res(grid_size, points, rotation, translation, background,
-                   out_weight, point_weight, *, pw_uniform: bool = False):
+                   out_weight, point_weight):
     """Forward + reusable neighbour-geometry residuals.
 
     The fused `jax.grad` pair (see `dprast.ad`): residuals are the
@@ -97,7 +103,6 @@ def raster_fwd_res(grid_size, points, rotation, translation, background,
     the neighbour/validity enumeration.  (The reference recomputes these,
     `src/raster_pullback.jl:20-22`, because its CPU loop is cache-hot;
     under XLA the recompute is whole extra HBM passes.)"""
-    del pw_uniform
     b = rotation.shape[0]
     total = int(math.prod(grid_size))
     idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation, translation,
@@ -115,11 +120,10 @@ def raster_fwd_res(grid_size, points, rotation, translation, background,
             (idx_flat, wsplat, dl))
 
 
-def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
-                        pw_uniform: bool = False) -> PullbackResult:
+def raster_pullback_res(grid_size, residuals, args,
+                        ds_dout) -> PullbackResult:
     """Pullback reusing `raster_fwd_res` residuals (skips
     `_neighbour_data`'s transform + neighbour enumeration)."""
-    del pw_uniform
     points, rotation, _, _, out_weight, point_weight = args
     idx_flat, wsplat, dl = residuals
     return _pullback_impl(grid_size, points, rotation, out_weight,
@@ -127,8 +131,7 @@ def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
 
 
 def raster_pullback(grid_size, points, rotation, translation, background,
-                    out_weight, point_weight, ds_dout, *,
-                    pw_uniform: bool = False) -> PullbackResult:
+                    out_weight, point_weight, ds_dout) -> PullbackResult:
     """Analytic pullback on canonical batched args.
 
     Pure gather: recomputes the forward neighbour geometry (the reference's
@@ -144,7 +147,6 @@ def raster_pullback(grid_size, points, rotation, translation, background,
       ds/dow      = sum_{p,s} g * W_s * pw                   (.jl:57)
       ds/dpw      = sum_{b,s} g * W_s * ow                   (.jl:58)
     """
-    del pw_uniform
     idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation,
                                               translation, grid_size)
     return _pullback_impl(grid_size, points, rotation, out_weight,

@@ -6,15 +6,16 @@ The reference selects backends implicitly from array types
 orthogonal (arrays are already committed to devices), so a backend here means
 a *kernel strategy*:
 
-- ``"xla"``     pure-jnp scatter/gather oracle (`dprast.ops.core`) — any dims
-- ``"matmul"``  scatter-free MXU contraction (`dprast.ops.splat_matmul`)
-- ``"binned"``  slot-scheduled tile-binned Pallas kernels for any
-                tile-aligned 2D/3D grid (`dprast.ops.splat_binned`)
-- ``"auto"``    best available for the given dims / grid / platform
+- ``"xla"``     scatter-add forward / gather pullback (`dprast.ops.core`)
+                — any dims; on the GPU XLA lowers the scatter to atomic
+                adds, the reference's own CUDA design
+- ``"matmul"``  scatter-free exact one-hot contractions
+                (`dprast.ops.splat_matmul`) — N_out <= 3
+- ``"auto"``    the measured choice for the given dims / grid / platform
 
-plus the two documented ~2e-3 fast modes ``"matmul_bf16"`` /
-``"binned_bf16"`` (1-term bf16 value operands; never auto-selected —
-`auto` preserves the ≤1e-5 parity contract).
+plus ``"matmul_bf16"``, `matmul` with 1-term bf16 value operands
+(~2e-3 relative error, outside the ≤1e-5 parity contract; never
+auto-selected, and slower than ``"xla"`` on the GPU).
 """
 
 from __future__ import annotations
@@ -23,56 +24,34 @@ import functools
 
 import jax
 
-from dprast.ops import core, geometry, splat_binned, splat_matmul
+from dprast.ops import core, splat_matmul
 
 _REGISTRY = {}
 
 
 def register(name: str, fwd, bwd, supports, vjp_pair=None):
-    """supports: (n_out, grid_size | None, n_points | None) -> bool.
+    """supports: (n_out) -> bool.
 
     `vjp_pair` is an optional fused custom-vjp pair
     ``(fwd_res(grid, *args) -> (out, residuals),
     bwd_res(grid, residuals, args, ds_dout) -> PullbackResult)`` used by
-    `dprast.ad` under differentiation; backends whose pullback repeats
-    expensive forward prep (e.g. the binned backend's sort) register one.
+    `dprast.ad` under differentiation, so the pullback reuses the
+    forward's neighbour geometry instead of recomputing it.
     """
     _REGISTRY[name] = (fwd, bwd, supports, vjp_pair)
 
 
 register("xla", core.raster_fwd, core.raster_pullback,
-         lambda n_out, grid=None, n_points=None: True,
+         lambda n_out: True,
          vjp_pair=(core.raster_fwd_res, core.raster_pullback_res))
 register("matmul", splat_matmul.raster_fwd, splat_matmul.raster_pullback,
-         lambda n_out, grid=None, n_points=None:
-         splat_matmul.supported(n_out))
-
-# Documented fast mode: 1-plane bf16 value operands (~2e-3 relative error
-# — fine for rendering/fitting, outside the 1e-5 reference-parity
-# contract; the exact one-hot side is unaffected).
+         splat_matmul.supported)
+# 1-plane bf16 value operands (~2e-3 relative error, outside the 1e-5
+# reference-parity contract; the exact one-hot side is unaffected).
 register("matmul_bf16",
          functools.partial(splat_matmul.raster_fwd, terms=1),
          functools.partial(splat_matmul.raster_pullback, terms=1),
-         lambda n_out, grid=None, n_points=None:
-         splat_matmul.supported(n_out))
-# (a fifth backend, "pallas" — a fused small-grid kernel pair — was
-# removed in r3: auto-dispatch never selected it because it lost to
-# "matmul" in its own regime on hardware, and the binned backend
-# subsumed its large-grid ambitions; VERDICT r2 #8)
-register("binned", splat_binned.raster_fwd, splat_binned.raster_pullback,
-         splat_binned.supported,
-         vjp_pair=(splat_binned.raster_fwd_res,
-                   splat_binned.raster_pullback_res))
-# Documented fast mode on the flagship backend: 1-term bf16 value
-# splits (~2e-3 relative error, same envelope as matmul_bf16) halve the
-# kernels' MXU work; sorts/fold/unfold are untouched.
-register("binned_bf16",
-         functools.partial(splat_binned.raster_fwd, terms=1),
-         functools.partial(splat_binned.raster_pullback, terms=1),
-         splat_binned.supported,
-         vjp_pair=(functools.partial(splat_binned.raster_fwd_res, terms=1),
-                   functools.partial(splat_binned.raster_pullback_res,
-                                     terms=1)))
+         splat_matmul.supported)
 
 
 def available_backends() -> tuple[str, ...]:
@@ -83,78 +62,44 @@ def default_backend() -> str:
     return "auto"
 
 
-def _on_tpu() -> bool:
-    return geometry.on_tpu()
+def on_gpu() -> bool:
+    """True when JAX's default backend is a GPU — the one platform probe.
+    'auto' needs none today (below); the on-card suite (`tests_gpu/`)
+    reads it to skip off the card."""
+    return jax.default_backend() == "gpu"
 
 
-def resolve(backend: str, n_out: int, grid_size=None,
-            n_points=None) -> str:
-    """Map 'auto' to a concrete strategy for the given output rank/grid.
+def resolve(backend: str, n_out: int) -> str:
+    """Map 'auto' to a concrete strategy; validate an explicit name.
 
-    Every auto choice is a configuration verified to compile AND run for
-    both directions on real TPU hardware — `jax.grad` through the public
-    API must never surface a Mosaic error (VERDICT r1 #4)."""
-    if backend != "auto":
-        if backend not in _REGISTRY:
-            raise ValueError(
-                f"Unknown backend {backend!r}; available: {available_backends()}")
-        supports = _REGISTRY[backend][2]
-        if not supports(n_out, grid_size, n_points):
-            raise ValueError(
-                f"Backend {backend!r} does not support N_out={n_out} "
-                f"grid={grid_size}")
-        return backend
-    # Compiled Pallas index maps trace literals as i64 under global x64,
-    # which Mosaic cannot legalize — stick to the XLA paths there.
-    if _on_tpu() and not jax.config.jax_enable_x64 and grid_size is not None:
-        # Large tile-aligned grids: dense one-hot paths do O(prod(grid))
-        # MXU work per point; the slot-scheduled binned backend restores
-        # O(tile) per point and is the only one whose kernels compile at
-        # these sizes.  Very sparse cases (e.g. 10^5 points -> 1024^3)
-        # fall back to the scatter oracle, whose cost scales with splats,
-        # not voxels.
-        voxels = 1
-        for s in grid_size:
-            voxels *= s
-        big = voxels > (256 * 256 if n_out == 2 else 32 ** 3)
-        if big:
-            if splat_binned.profitable(n_out, grid_size, n_points):
-                return "binned"
-            return "xla"
-    if splat_matmul.supported(n_out) and _on_tpu():
-        # dense one-hot contractions are only a win where they buy MXU
-        # throughput; on CPU the O(splats) scatter oracle is ~10x faster
-        # (measured 4-core XLA:CPU, 128^2 x 64 x 1e4: matmul 637/381 ms
-        # fwd/bwd vs xla 49/26 — the oracle beats even the reference's
-        # 8-thread CPU row, BASELINE 73/10 ms)
-        return "matmul"
-    return "xla"
+    'auto' is the xla scatter/gather on every platform.  On the GPU it
+    beat both matmul variants on every measured row, forward / pullback
+    (three gradients) / fused step, median ms on an H100 80GB HBM3 at a
+    400 W power limit
+    (`benchmarks/run.py --grad --backends xla,matmul,matmul_bf16`):
 
+        128^2  x64 x1e4   xla 0.21/0.41/0.41   matmul 1.2/2.4/3.3
+                                               matmul_bf16 0.82/1.8/2.5
+        128^2  x64 x1e5   xla 0.65/1.05/1.57   matmul 9.7/19.4/28.4
+                                               matmul_bf16 5.9/15.1/20.3
+        1024^2 x64 x1e5   xla 0.71/1.15/1.71   matmul 477/247/730
+                                               matmul_bf16 276/142/428
+        128^3  x1  x1e6   xla 0.36/0.88/1.03   matmul 116/276/394
+                                               matmul_bf16 65/296/365
 
-def resolve_pair(backend: str, n_out: int, grid_size=None,
-                 n_points=None) -> tuple[str, str]:
-    """Per-direction (forward, backward) strategy resolution.
-
-    The two directions may have different optimal strategies
-    (the reference itself mixes: KernelAbstractions forward, hand-written
-    CUDA backward — `src/raster.jl:36` vs `ext/...CUDAExt.jl:19`).
-    Measured v5e at the flagship 128^2 x 64 x 1e5 config (r4 kernels):
-    binned forward 6.7-7.4 ms (uniform/weighted) vs matmul 7.2-8.7, and
-    binned backward 8.4 ms vs matmul 10.3 — 'auto' therefore runs BOTH
-    directions on the binned backend for single-tile 2D grids (where the
-    binned frame needs no sort and no unsort; in r3 the matmul forward
-    still edged it out, before the hat kernel dropped the weight
-    multiply and the fold-time out_weight).  Explicit backend names
-    always apply to both directions.
+    On the CPU the O(splats) scatter beats the dense one-hot
+    contractions too (4-core XLA:CPU, 128^2 x 64 x 1e4: matmul 637/381 ms
+    fwd/bwd vs xla 49/26).
     """
-    name = resolve(backend, n_out, grid_size, n_points)
-    if (backend == "auto" and name == "matmul" and grid_size is not None
-            and n_out == 2 and _on_tpu() and not jax.config.jax_enable_x64
-            and splat_binned._single_tile(grid_size)
-            and min(grid_size) > 64
-            and splat_binned.profitable(n_out, grid_size, n_points)):
-        return "binned", "binned"
-    return name, name
+    if backend == "auto":
+        return "xla"
+    if backend not in _REGISTRY:
+        raise ValueError(
+            f"Unknown backend {backend!r}; available: {available_backends()}")
+    if not _REGISTRY[backend][2](n_out):
+        raise ValueError(
+            f"Backend {backend!r} does not support N_out={n_out}")
+    return backend
 
 
 def fwd_fn(backend: str):

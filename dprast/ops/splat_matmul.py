@@ -1,7 +1,7 @@
-"""Scatter-free MXU formulation of the multilinear splat.
+"""Scatter-free one-hot contraction formulation of the multilinear splat.
 
 The splat weight factorises over output axes.  Split the stencil of the
-LAST (lane) axis into its two branches ``sx in {0, 1}`` and write the
+LAST (minor) axis into its two branches ``sx in {0, 1}`` and write the
 one-hot of column ``r0_x + sx`` as an EXACT 0/1 matrix ``O_sx`` (exactly
 representable in bf16); everything else — the product of the leading-axis
 pair factors, the per-point weight and the branch weight ``w_sx(dl_x)`` —
@@ -9,39 +9,36 @@ is a dense f32 "value" operand ``V_sx``.  The forward is then
 
     out[b] = bg[b] + ow[b] * sum_sx einsum('pr,px->rx', V_sx, O_sx)
 
-i.e. dense matmuls on the TPU MXU with **no scatter and no atomics** — the
-TPU-native replacement for the reference's atomic adds (`src/raster.jl:64`)
-and its CUDA shared-memory reductions
-(`ext/DiffPointRasterisationCUDAExt.jl:107-191`).  Out-of-grid neighbours
-drop out automatically because the iota comparison never matches
-(`src/raster.jl:62` drop semantics).
+i.e. dense batched matrix products with **no scatter and no atomics**, in
+place of the reference's atomic adds (`src/raster.jl:64`) and its CUDA
+shared-memory reductions (`ext/DiffPointRasterisationCUDAExt.jl:107-191`).
+Out-of-grid neighbours drop out automatically because the iota comparison
+never matches (`src/raster.jl:62` drop semantics).
 
 Precision: each ``V`` is decomposed into an error-free sum of `terms` bf16
 planes (via `lax.reduce_precision` — an ``astype`` round-trip would be
 elided by XLA's excess-precision pass, silently collapsing the
-decomposition) and each plane hits the MXU once against the exact one-hot.
-With no cross terms, 3 planes reproduce every product to ~2^-24; measured
-end-to-end parity vs the f64 oracle is ~1e-7 — vs ~1e-5 for a plain f32
-einsum at `Precision.HIGHEST`, whose internal bf16_6x scheme rounds BOTH
-operands.  XLA fuses the one-hot/value construction into the dot operand
-reads (verified via cost_analysis: ~40 MB HBM per chunk instead of the
-~400 MB a materialised formulation pays), so the path runs compute-bound.
+decomposition) and each plane meets the exact one-hot in one bf16 product
+with float32 accumulation (`preferred_element_type`): on the GPU's tensor
+cores every bf16 x {0,1} product is exact and only the float32 sums
+round.  With no cross terms, 3 planes reproduce
+every product to ~2^-24 and 2 planes to ~2^-17; both sit inside the
+≤1e-5 reference-parity contract against the f64 oracle.
 
 The backward reuses the SAME selection family: ``T_sx = O_sx @ g`` gathers,
 per point, the two x-stencil columns of the cotangent across all
-leading-axis rows; every gradient then follows from fused VPU row
+leading-axis rows; every gradient then follows from fused elementwise row
 reductions against the leading-axis pair factors.  ONE exact selection
-(2 branches × `terms` MXU passes) replaces the two dense f32 contractions
-a direct transpose needs — half the MXU passes of the previous
-`Precision.HIGHEST` formulation (which is where the reference's CUDA
-kernel spends its shared-memory tree reductions,
-`ext/...CUDAExt.jl:107-191`).  Point/pose/weight gradients follow exactly
-as in the reference (`src/raster_pullback.jl:67-72`).
+(2 branches, all `terms` planes concatenated along the contraction axis)
+replaces the two dense f32 contractions a direct transpose needs.
+Point/pose/weight gradients follow exactly as in the reference
+(`src/raster_pullback.jl:67-72`).
 
 Points are processed in static-size chunks via `lax.scan` so transient
 operands stay bounded.  float64 inputs (CPU tests; the reference runs its
 suite in Float64) skip the bf16 decomposition and run the same branch dots
-at `Precision.HIGHEST` in the input dtype.
+at `Precision.HIGHEST` in the input dtype.  Every other float32
+contraction here also passes `Precision.HIGHEST`, so none runs in TF32.
 """
 
 from __future__ import annotations
@@ -53,18 +50,11 @@ from jax import lax
 from dprast.ops import geometry
 from dprast.ops.core import PullbackResult
 
-# Error-free bf16 planes per value operand; 1 plane = the documented
-# 'matmul_bf16' fast mode (~2e-3 relative error).  Defaults measured on
-# TPU v5e at the flagship config (1e5 pts x 64 poses, 128^2) vs the f64
-# oracle:
-#
-#   forward   2 planes  ~2.5e-6   7.8 ms   (3 planes: ~1e-7, 12.2 ms)
-#   backward  3 planes  ~2.6e-7  10.8 ms   (planes ride ONE dot: ~free)
-#
-# Both defaults sit well inside the <=1e-5 reference-parity contract
-# (BASELINE.json).  They differ because the backward concatenates its
-# planes along the contraction axis of a single selection dot (adding a
-# plane only deepens K), while each forward plane is its own dot.
+# Error-free bf16 planes per value operand; 1 plane = the
+# 'matmul_bf16' backend (~2e-3 relative error).  The forward pays one
+# product per plane, so it takes 2 planes (~2^-17 relative per product);
+# the backward concatenates its planes along the contraction axis of a
+# single selection product (a plane only deepens K), so it takes 3.
 FWD_TERMS = 2
 BWD_TERMS = 3
 
@@ -86,8 +76,8 @@ def _split_planes(x, terms):
 
 
 def _branch_dot(spec, value, onehot_mask, terms):
-    """``einsum(spec, value, onehot)``: bf16 planes x exact 0/1 one-hot on
-    the MXU with f32 accumulation; float64 runs one HIGHEST dot instead."""
+    """``einsum(spec, value, onehot)``: bf16 planes x exact 0/1 one-hot
+    with f32 accumulation; float64 runs one HIGHEST dot instead."""
     if value.dtype == jnp.float64:
         return jnp.einsum(spec, value, onehot_mask.astype(jnp.float64),
                           precision=lax.Precision.HIGHEST)
@@ -148,14 +138,11 @@ def _compute_dtype(*dtypes):
 
 def raster_fwd(grid_size, points, rotation, translation, background,
                out_weight, point_weight, *, chunk: int | None = None,
-               terms: int = FWD_TERMS, pw_uniform: bool = False):
+               terms: int = FWD_TERMS):
     """Forward rasterisation via exact-one-hot branch contractions.
 
     Canonical batched args (see `dprast.ops.core`) → (B, *grid_size).
-    (`pw_uniform` is accepted for dispatch uniformity; the per-point
-    weight multiply is one fused VPU pass here either way.)
     """
-    del pw_uniform
     n_out = len(grid_size)
     assert supported(n_out), \
         f"matmul path supports N_out in (1,2,3), got {n_out}"
@@ -202,11 +189,9 @@ def raster_fwd(grid_size, points, rotation, translation, background,
 def raster_pullback(grid_size, points, rotation, translation, background,
                     out_weight, point_weight, ds_dout, *,
                     chunk: int | None = None,
-                    terms: int = BWD_TERMS,
-                    pw_uniform: bool = False) -> PullbackResult:
+                    terms: int = BWD_TERMS) -> PullbackResult:
     """Analytic pullback via one exact selection-matmul family per chunk
     (gather-free AND scatter-free).  Returns `PullbackResult`."""
-    del pw_uniform
     n_out = len(grid_size)
     assert supported(n_out)
     b = rotation.shape[0]
@@ -227,8 +212,7 @@ def raster_pullback(grid_size, points, rotation, translation, background,
     # hoisted: the cotangent's bf16 planes, CONCATENATED along the lane
     # axis, are shared by every chunk.  Each branch selection is then ONE
     # dot whose contraction runs over all planes at once (a separate dot
-    # per plane would materialise a full (B, C, R) f32 output each —
-    # measured 38.8 ms vs 10.8 ms at the flagship config).
+    # per plane would materialise a full (B, C, R) f32 output each).
     if cdt == jnp.float64:
         g_cat = gf
         xiota = lax.broadcasted_iota(jnp.int32, (1, 1, nx), 2)

@@ -3,7 +3,8 @@
 The reference is single-process (SURVEY §2: no NCCL/MPI anywhere); its only
 "parallelism" is CUDA atomics + CPU threads.  Here the same two logical work
 axes — points and poses — become axes of a `jax.sharding.Mesh`, and the
-conflict-resolution/reduction story is XLA collectives over ICI:
+conflict-resolution/reduction story is XLA collectives, which XLA hands to
+NCCL on GPUs (NVLink between the cards of one host):
 
 - forward: per-shard partial images, `psum` over the ``points`` axis
   (replaces the reference's atomic adds on the output image,

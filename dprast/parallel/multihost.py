@@ -1,17 +1,18 @@
-"""Multi-host initialisation and pod-scale mesh construction.
+"""Multi-process initialisation and whole-cluster mesh construction.
 
 The reference is strictly single-process (SURVEY §2: no NCCL/MPI/UCX
-anywhere); scaling beyond one host is a new capability of this framework.
-JAX's runtime does the heavy lifting: `jax.distributed.initialize` forms
-the process group, `jax.devices()` then spans every chip in the slice, and
-the same `raster_sharded` shard_map (`dprast.parallel.sharded`) runs
-unchanged — its `psum` collectives ride ICI within a host/slice and DCN
-across hosts, compiled by XLA.
+anywhere); scaling beyond one process is a new capability of this
+framework.  JAX's runtime does the heavy lifting: `jax.distributed.initialize`
+forms the process group, `jax.devices()` then spans every device of every
+process, and the same `raster_sharded` shard_map
+(`dprast.parallel.sharded`) runs unchanged — its `psum` collectives are
+compiled by XLA and run over NCCL on GPUs.
 
-Typical pod run (same script on every host):
+One process can drive every card of a host, so a single host needs none
+of this.  A multi-host run starts the same script on every host:
 
-    from dprast.parallel import multihost, make_mesh, raster_sharded
-    multihost.initialize()                  # env-driven (GKE/TPU VM)
+    from dprast.parallel import multihost, raster_sharded
+    multihost.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = multihost.pod_mesh(points_axis_per_host=True)
     out = raster_sharded(grid, pts, rots, trs, mesh=mesh)
 """
@@ -30,13 +31,7 @@ def _multiprocess_env() -> bool:
     group is a REAL pod misconfiguration and must surface loudly — silently
     degrading to single-host would have every host compute in isolation."""
     if any(os.environ.get(v) for v in (
-            "COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-            "MEGASCALE_COORDINATOR_ADDRESS")):
-        return True
-    # TPU_WORKER_HOSTNAMES exists on single-host TPU VMs too ("localhost");
-    # only >1 comma-separated worker means a pod slice.
-    if len([h for h in
-            os.environ.get("TPU_WORKER_HOSTNAMES", "").split(",") if h]) > 1:
+            "COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")):
         return True
     for var in ("SLURM_JOB_NUM_NODES", "OMPI_COMM_WORLD_SIZE"):
         try:
@@ -77,13 +72,14 @@ def initialize(coordinator_address: str | None = None,
 
 
 def pod_mesh(points_axis_per_host: bool = True):
-    """A ("poses", "points") mesh over every device in the slice.
+    """A ("poses", "points") mesh over every device of every process.
 
     With `points_axis_per_host` the "points" axis spans the devices WITHIN
-    each host (collectives over it ride ICI) and "poses" spans hosts
-    (its gradient psums cross DCN once per step, amortised over the whole
-    pose batch) — the layout that keeps the hot forward `psum` of partial
-    images off the slow links.
+    each process (its forward `psum` of partial images stays on the
+    host's NVLink) and "poses" spans processes (its gradient psums cross
+    the network once per step, amortised over the whole pose batch).
+    Within one host every card reaches every other at the same rate, so
+    no other topology matters.
     """
     n = jax.device_count()
     local = jax.local_device_count()

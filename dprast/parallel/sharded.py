@@ -1,6 +1,6 @@
 """`shard_map`-based multi-device rasterisation over a ("poses", "points") mesh.
 
-Sharding layout (SURVEY §7.5; the TPU-native replacement for the reference's
+Sharding layout (SURVEY §7.5; the multi-device counterpart of the reference's
 atomics/thread-slabs, see `dprast.parallel` module docstring):
 
     points       (P, N_in)        sharded over "points", replicated over "poses"
@@ -150,7 +150,7 @@ def raster_sharded(grid_size, points, rotation, translation, background=None,
 
     Returns a (B, *grid_size) array sharded over the "poses" axis.
     """
-    grid_size, args, batched, pw_uniform = api._normalise(
+    grid_size, args, batched = api._normalise(
         grid_size, points, rotation, translation, background, out_weight,
         point_weight, dtype)
     if not batched:
@@ -158,43 +158,22 @@ def raster_sharded(grid_size, points, rotation, translation, background=None,
     if args[0].shape[0] == 0:
         # empty cloud: the background image, sharded over poses (mirrors
         # api.raster's guard; backends chunk by points and cannot run P=0)
-        dispatch.resolve(backend, len(grid_size), grid_size, 0)  # validate
+        dispatch.resolve(backend, len(grid_size))  # validate
         b = args[1].shape[0]
         out = jnp.broadcast_to(
             args[3].reshape((b,) + (1,) * len(grid_size)),
             (b,) + grid_size)
         # replicated placement: valid for any batch vs poses-axis size
         return jax.device_put(out, NamedSharding(mesh, P()))
-    # The uniform-weight fast path survives sharding only when no
-    # points-axis padding is needed (padding relies on weight-0 rows to
-    # drop the padded points, so the weight plane becomes load-bearing —
-    # see shard_raster_args).  Static shapes make this a static rule: at
-    # production scale, size the points axis to divide the cloud.
-    # (Coordinate-based padding was considered and rejected: a padded
-    # point at any finite coordinate lands IN-grid for valid degenerate
-    # poses, e.g. a rotation row summing exactly to zero.)
-    pw_fast = pw_uniform and (
-        args[0].shape[0] % mesh.shape[POINTS_AXIS] == 0)
-    args, n_points, b = shard_raster_args(mesh, *args)
-    resolved = dispatch.resolve(backend, len(grid_size), grid_size,
-                                n_points)
-    out = _raster_shard_map(grid_size, resolved, mesh, *args,
-                            pw_uniform=pw_fast)
+    args, _, b = shard_raster_args(mesh, *args)
+    resolved = dispatch.resolve(backend, len(grid_size))
+    out = _raster_shard_map(grid_size, resolved, mesh, *args)
     return out if out.shape[0] == b else out[:b]
 
 
 def _raster_shard_map(grid_size, backend, mesh, points, rotation, translation,
-                      background, out_weight, point_weight, *,
-                      pw_uniform=False):
+                      background, out_weight, point_weight):
     n_out = len(grid_size)
-    # vma checking stays ON for every backend: the binned backend's
-    # pallas_calls run on `geometry.vma_erase`d operands, declare
-    # axis-invariant out structs (`splat_binned._out_struct`) and
-    # re-assert the true variance union on their results via
-    # `geometry.vma_assert` — a scoped retype around the one construct
-    # (variance flowing THROUGH a pallas_call) jax 0.9.0 cannot type.
-    # The psums below still see correctly varying-typed results.
-    check_vma = True
 
     def vary(x, axis):
         return lax.pcast(x, axis, to="varying")
@@ -208,16 +187,11 @@ def _raster_shard_map(grid_size, backend, mesh, points, rotation, translation,
         tr = vary(tr, POINTS_AXIS)
         ow = vary(ow, POINTS_AXIS)
         zero_bg = jnp.zeros_like(vary(bg, POINTS_AXIS))
-        # pw_uniform holds per shard exactly when it held globally AND no
-        # points-axis padding was inserted (weight-0 padding rows would
-        # break the every-entry-equal promise) — the caller passes the
-        # static flag under that rule, so each shard's weights are the
-        # same broadcast scalar and the backends drop the weight plane
-        # exactly as the single-device default call does
-        partial = ad.raster_canonical(grid_size, backend, pw_uniform, pts,
-                                      rot, tr, zero_bg, ow, pw)
+        partial = ad.raster_canonical(grid_size, backend, pts, rot, tr,
+                                      zero_bg, ow, pw)
         # Replaces the reference's atomic adds on the shared output image
-        # (src/raster.jl:64): partial per-shard images, one ICI reduction.
+        # (src/raster.jl:64): partial per-shard images, one reduction
+        # across devices.
         total = lax.psum(partial, POINTS_AXIS)
         return total + bg.reshape((-1,) + (1,) * n_out)
 
@@ -228,7 +202,7 @@ def _raster_shard_map(grid_size, backend, mesh, points, rotation, translation,
                   P(POSES_AXIS, None), P(POSES_AXIS), P(POSES_AXIS),
                   P(POINTS_AXIS)),
         out_specs=P(POSES_AXIS, *([None] * n_out)),
-        check_vma=check_vma,
+        check_vma=True,
     )
     return fn(points, rotation, translation, background, out_weight,
               point_weight)

@@ -136,6 +136,46 @@ def raster_pullback_numpy(grid_size, points, rotation, translation,
                 background=d_bg, out_weight=d_ow, point_weight=d_pw)
 
 
+def compensated_coords_errors(points, rotation, translation, grid_size):
+    """Check `geometry.pose_voxel_and_deltas` (float32 inputs, compensated
+    pipeline) against a float64 transform of the same values.
+
+    Returns ``(max |r0 + dl - u64|, n_wrong_voxel, dl_in_range)``.  The
+    first is bounded by dl's own float32 rounding, 2^-25 ≈ 2.98e-8; the
+    second counts reference voxels that differ from float64's where u64 is
+    more than 1e-9 from a voxel boundary (it must be 0).
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from dprast.ops import geometry
+
+    pts, rot, tr = (np.asarray(a, np.float32)
+                    for a in (points, rotation, translation))
+    r0, dl = jax.jit(lambda *a: geometry.pose_voxel_and_deltas(
+        *a, tuple(grid_size)))(jnp.asarray(pts), jnp.asarray(rot),
+                               jnp.asarray(tr))
+    q64 = np.einsum("boi,pi->bpo", rot.astype(np.float64),
+                    pts.astype(np.float64)) + tr.astype(np.float64)[:, None]
+    u64 = (q64 + 1) * np.asarray(grid_size, np.float64) / 2 - 0.5
+    r0 = np.asarray(r0, np.int64)
+    dl = np.asarray(dl, np.float64)
+    err = float(np.max(np.abs(r0 + dl - u64), initial=0.0))
+    clear = np.abs(u64 - np.round(u64)) > 1e-9
+    wrong = int(np.sum((r0 != np.ceil(u64) - 1) & clear))
+    return err, wrong, bool(np.all((dl > 0) & (dl <= 1)))
+
+
+def scaled_err(got, want) -> float:
+    """Max absolute error of `got` against the float64 oracle `want`,
+    divided by ``max(max|want|, 1)`` — the scale-normalised error that the
+    ≤1e-5 reference-parity contract bounds."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    scale = max(float(np.max(np.abs(want), initial=0.0)), 1.0)
+    return float(np.max(np.abs(got - want), initial=0.0)) / scale
+
+
 def tree_allclose(a, b, rtol=1e-5, atol=1e-7):
     """Field-wise comparison of PullbackResult/RasterGrads-like tuples
     (the reference's `cuda_cpu_agree`, `test/util.jl:6-34`)."""

@@ -1,5 +1,5 @@
 """Langevin-dynamics point-cloud fitting — the reference's logo demo
-(`/root/reference/examples/logo.jl:18-77`) rebuilt JAX-native.
+(the reference's `examples/logo.jl:18-77`) rebuilt JAX-native.
 
 Model: raster points into an image with a global log-weight, blur with an
 FFT gaussian of a learnable log-bandwidth, L2-compare to a target image
@@ -7,7 +7,7 @@ FFT gaussian of a learnable log-bandwidth, L2-compare to a target image
 on the points + plain gradient steps on the two scalars (reference
 `langevin!` :48-76), all through `jax.grad` on the analytic pullback.
 
-Run: python examples/fit_langevin.py [--steps 400] [--out /tmp/fit]
+Run: python examples/fit_langevin.py [--steps 400] [--out fit_out]
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 import dprast
+from dprast.utils import compile_cache
 
 GRID = (128, 128)
 N_POINTS = 3000
@@ -76,12 +77,7 @@ def make_target(key):
 def langevin_fit(target, steps=400, seed=0, step_size=5.0, noise=1e-5,
                  log_every=50, backend="auto"):
     """reference langevin!: x += eps*grad + sqrt(2 eps T) xi (logo.jl:55-60);
-    plain gradient steps for the scalars (logo.jl:62-66).
-
-    ``backend="binned_bf16"`` runs the fit in the documented ~2e-3 fast
-    mode — rendering-tolerance fits converge the same and the fused
-    step drops ~40% (measured v5e at the 128²x64x1e5 training shape:
-    14.6 -> 8.8 ms)."""
+    plain gradient steps for the scalars (logo.jl:62-66)."""
     key = jax.random.PRNGKey(seed)
     key, k0 = jax.random.split(key)
     points = jax.random.uniform(k0, (N_POINTS, 2), minval=-0.8, maxval=0.8)
@@ -128,22 +124,18 @@ def load_image_target(path):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=400)
-    ap.add_argument("--out", default="/tmp/dprast_fit")
+    ap.add_argument("--out", default="fit_out")
     ap.add_argument("--image", default=None,
                     help="PNG target (e.g. examples/data/logo.png); "
                          "default: procedural three-ring target")
-    ap.add_argument("--fast", action="store_true",
-                    help="run in the binned_bf16 fast mode (~2e-3 "
-                         "error, ~40%% faster fused steps)")
     args = ap.parse_args()
+    compile_cache.enable()
 
     if args.image:
         target = load_image_target(args.image)
     else:
         target = make_target(jax.random.PRNGKey(42))
-    backend = "binned_bf16" if args.fast else "auto"
-    points, log_bw, log_w, history = langevin_fit(target, steps=args.steps,
-                                                  backend=backend)
+    points, log_bw, log_w, history = langevin_fit(target, steps=args.steps)
 
     os.makedirs(args.out, exist_ok=True)
     final = np.asarray(model(points, log_bw, log_w))

@@ -4,8 +4,8 @@ its parallelism being CPU threads / CUDA atomics; here the same model
 spans every local device through one `("poses", "points")` mesh).
 
 A 3D cloud is fitted to multi-view 2D projections (the tomography setup)
-with `jax.grad` flowing THROUGH the `shard_map`: per-shard binned/matmul
-kernels, one `psum` of partial images over the points axis, gradient
+with `jax.grad` flowing THROUGH the `shard_map`: per-shard splats, one
+`psum` of partial images over the points axis, gradient
 collectives derived automatically from the vma-typed forward
 (`dprast/parallel/sharded.py`, `docs/scaling.md`).
 
@@ -30,8 +30,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import dprast
 from dprast.parallel import make_mesh, raster_sharded
+from dprast.utils import compile_cache
 
 GRID = (64, 64)
 N_VIEWS = 6          # deliberately NOT divisible by typical mesh axes
@@ -91,6 +91,7 @@ def main():
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--lr", type=float, default=30.0)
     args = ap.parse_args()
+    compile_cache.enable()
     print(f"devices: {jax.device_count()} "
           f"({jax.default_backend()})", flush=True)
     _, hist = fit(steps=args.steps, lr=args.lr)

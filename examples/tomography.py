@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 import dprast
+from dprast.utils import compile_cache
 
 GRID = (96, 96)
 N_POINTS = 2000
@@ -68,15 +69,10 @@ def blur(imgs, sigma=1.5):
         lambda r: jnp.convolve(r, k, "same"), 1, im))(imgs)
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=300)
-    ap.add_argument("--fast", action="store_true",
-                    help="reconstruct in the binned_bf16 fast mode "
-                         "(~2e-3 error; reconstruction-tolerance work)")
-    args = ap.parse_args()
-    backend = "binned_bf16" if args.fast else "auto"
+def fit(steps=300, backend="auto", log_every=50):
+    """Reconstruct the rings from their projections by gradient descent.
 
+    Returns (points, [(step, loss), ...])."""
     rots = view_matrices()
     trans = jnp.zeros((N_VIEWS, 2), jnp.float32)
     truth = make_truth(jax.random.PRNGKey(1))
@@ -90,18 +86,27 @@ def main():
                                   backend=backend))
         return jnp.mean((pred - target) ** 2)
 
-    val_grad = jax.jit(jax.value_and_grad(loss))
-    lr = 3.0
-    for i in range(args.steps):
-        val, g = val_grad(points)
-        points = points - lr * g
-        if i % 50 == 0 or i == args.steps - 1:
-            print(f"step {i:4d}  projection loss {float(val):.3e}")
+    @jax.jit
+    def step(points):
+        val, g = jax.value_and_grad(loss)(points)
+        return points - 3.0 * g, val
 
-    final = float(loss(points))
-    first = float(loss(jax.random.uniform(jax.random.PRNGKey(2),
-                                          (N_POINTS, 3), minval=-0.6,
-                                          maxval=0.6)))
+    history = []
+    for i in range(steps):
+        points, val = step(points)
+        if i % log_every == 0 or i == steps - 1:
+            history.append((i, float(val)))
+            print(f"step {i:4d}  projection loss {float(val):.3e}")
+    return points, history
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=300)
+    args = ap.parse_args()
+    compile_cache.enable()
+    _, history = fit(args.steps)
+    first, final = history[0][1], history[-1][1]
     print(f"loss {first:.3e} -> {final:.3e} "
           f"({final / first:.1%} of initial)")
     assert final < 0.5 * first, "reconstruction failed to converge"

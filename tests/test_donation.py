@@ -7,7 +7,7 @@ marks loop-carried buffers as consumed and XLA aliases them input→output
 instead of allocating fresh ones.  These tests pin that story down at the
 compiler level (the alias table of the compiled executable), which holds
 on any backend — actual buffer reuse additionally requires a device whose
-runtime honours donation (TPU/GPU; CPU may copy).
+runtime honours donation (the GPU; the CPU may copy).
 """
 
 import jax

@@ -162,27 +162,15 @@ def test_jit_vmap_compose():
                                rtol=1e-12, atol=1e-12)
 
 
-def test_matmul_bf16_fast_mode_close():
-    """The documented fast mode trades ~bf16 accuracy for speed; it must
-    stay within its advertised tolerance of the faithful backend."""
-    fx = _fx(n_points=64, batch=4)
-    args = tuple(jnp.asarray(v, jnp.float32) for v in fx.values())
-    ref = dprast.raster(GRID, *args, backend="matmul")
-    fast = dprast.raster(GRID, *args, backend="matmul_bf16")
-    scale = max(float(jnp.max(jnp.abs(ref))), 1.0)
-    np.testing.assert_allclose(np.asarray(fast) / scale,
-                               np.asarray(ref) / scale, atol=2e-2)
-
-
 @pytest.mark.parametrize("grid", [(8, 8), (8, 192)])
-def test_binned_bf16_fast_mode_close(grid):
-    """The binned fast mode (r5, the matmul_bf16 analogue on the
-    flagship backend): single-tile and sorted multi-tile paths both
-    within the advertised ~2e-3 envelope, forward and gradients."""
-    fx = _fx(n_points=48, batch=3, seed=7)
+def test_matmul_bf16_fast_mode_close(grid):
+    """matmul_bf16 (1-plane bf16 values, ~2e-3 error) must stay within its
+    documented envelope of the faithful backend, forward, through jax.grad
+    and in the standalone pullback (all six fields)."""
+    fx = _fx(n_points=64, batch=4, seed=7)
     args = tuple(jnp.asarray(v, jnp.float32) for v in fx.values())
-    ref = dprast.raster(grid, *args, backend="binned")
-    fast = dprast.raster(grid, *args, backend="binned_bf16")
+    ref = dprast.raster(grid, *args, backend="matmul")
+    fast = dprast.raster(grid, *args, backend="matmul_bf16")
     scale = max(float(jnp.max(jnp.abs(ref))), 1.0)
     np.testing.assert_allclose(np.asarray(fast) / scale,
                                np.asarray(ref) / scale, atol=2e-2)
@@ -194,38 +182,35 @@ def test_binned_bf16_fast_mode_close(grid):
         return jnp.sum(dprast.raster(grid, pts, args[1], tr, *args[3:],
                                      backend=backend) * g)
 
-    g_f = jax.grad(lambda *a: loss("binned_bf16", *a), argnums=(0, 1))(
+    g_f = jax.grad(lambda *a: loss("matmul_bf16", *a), argnums=(0, 1))(
         args[0], args[2])
-    g_r = jax.grad(lambda *a: loss("binned", *a), argnums=(0, 1))(
+    g_r = jax.grad(lambda *a: loss("matmul", *a), argnums=(0, 1))(
         args[0], args[2])
     for a, b in zip(g_f, g_r):
         sc = max(float(jnp.max(jnp.abs(b))), 1.0)
         np.testing.assert_allclose(np.asarray(a) / sc, np.asarray(b) / sc,
                                    atol=2e-2)
 
-    # the standalone pullback API in fast mode (all six fields)
-    pb_f = dprast.raster_pullback(g, *args, backend="binned_bf16")
-    pb_r = dprast.raster_pullback(g, *args, backend="binned")
+    pb_f = dprast.raster_pullback(g, *args, backend="matmul_bf16")
+    pb_r = dprast.raster_pullback(g, *args, backend="matmul")
     for name in pb_r._fields:
         b = np.asarray(getattr(pb_r, name))
         sc = max(float(np.max(np.abs(b))), 1.0)
         np.testing.assert_allclose(np.asarray(getattr(pb_f, name)) / sc,
                                    b / sc, atol=2e-2,
-                                   err_msg=f"fast-mode pullback {name}")
+                                   err_msg=f"matmul_bf16 pullback {name}")
 
 
-@pytest.mark.parametrize("backend", ["binned"])
+@pytest.mark.parametrize("backend", ["matmul"])
 @pytest.mark.parametrize("n_in,n_out", [(3, 2), (3, 3)])
 def test_check_grads_kernel_backends(backend, n_in, n_out):
-    """Finite-difference checks on the Pallas-kernel backends (through the
-    interpreter on CPU) — the reference runs `test_rrule` on every path it
-    can (`test/chainrules.jl:2-90`).  These backends compute internally in
-    f32 (MXU/bf16-split design), so tolerances are f32-scaled."""
+    """Finite-difference checks on the contraction backend with float32
+    inputs, i.e. through its bf16-plane products — the path the GPU runs
+    (the reference runs `test_rrule` on every path it can,
+    `test/chainrules.jl:2-90`).  Tolerances are float32-scaled."""
     grid = (8,) * n_out
-    from dprast.ops import dispatch
-    if not dispatch._REGISTRY[backend][2](n_out, grid):
-        pytest.skip(f"{backend} does not support {grid}")
     fx = _fx(n_in=n_in, n_out=n_out)
+    args = tuple(jnp.asarray(v, jnp.float32) for v in fx.values())
 
     def f(points, rotation, translation, background, out_weight,
           point_weight):
@@ -233,58 +218,27 @@ def test_check_grads_kernel_backends(backend, n_in, n_out):
                              background, out_weight, point_weight,
                              backend=backend)
 
-    check_grads(f, tuple(fx.values()), order=1, modes=["rev"], atol=5e-3,
-                rtol=5e-3)
+    check_grads(f, args, order=1, modes=["rev"], atol=5e-3, rtol=5e-3)
 
 
-@pytest.mark.slow
-def test_check_grads_binned_multitile_2d():
-    """Finite-difference check on a SORTED multi-tile 2D binned frame
-    (8, 192): two x-tiles, so the full sort → halo fold/unfold → unsort
-    machinery is in the differentiation path — the configuration the
-    single-tile (8, 8) case above never reaches (the reference's
-    `test_rrule` analogue, `test/chainrules.jl:2-90`).  Runs through the
-    Pallas interpreter on CPU.
-
-    eps is chosen for the 96-voxel/unit x scale: the default 3.4e-4
-    probe moves coordinates ~0.03 voxels — across the piecewise-linear
-    voxel kinks — while 2e-5 stays ~2e-3 voxels, far above the backend's
-    2^-23 coordinate quantization and (at this seed) clear of every
-    voxel boundary."""
-    grid = (8, 192)
-    fx = _fx(n_in=3, n_out=2, n_points=16, batch=2, seed=3)
-
-    def f(points, rotation, translation, background, out_weight,
-          point_weight):
-        return dprast.raster(grid, points, rotation, translation,
-                             background, out_weight, point_weight,
-                             backend="binned")
-
-    check_grads(f, tuple(fx.values()), order=1, modes=["rev"], atol=5e-3,
-                rtol=5e-3, eps=2e-5)
-
-
-def test_grad_binned_3d_matches_xla():
-    """`jax.grad` through the binned 3D path vs the oracle backend.  (The
-    finite-difference harness is unusable on fine 3D grids: with the x
-    scale at 64 voxels/unit, any probe step either crosses voxel-boundary
-    kinks or drowns in the backend's 2^-23 coordinate quantization — so
-    the binned VJP is checked against the analytically verified xla VJP.)
-    """
+def test_grad_matmul_3d_matches_xla():
+    """`jax.grad` through the matmul 3D path (float32: bf16-plane
+    selections) vs the xla scatter/gather backend on a grid with a wide
+    minor axis, where finite differences cross voxel-boundary kinks."""
     grid = (8, 16, 128)
     fx = _fx(n_in=3, n_out=3)
+    pts, rot, tr = (jnp.asarray(fx[k], jnp.float32)
+                    for k in ("points", "rotation", "translation"))
 
     def loss(backend, pts, rot, tr):
         return jnp.sum(
             dprast.raster(grid, pts, rot, tr, backend=backend) ** 2)
 
-    g_b = jax.grad(lambda *a: loss("binned", *a), argnums=(0, 1, 2))(
-        fx["points"], fx["rotation"], fx["translation"])
+    g_m = jax.grad(lambda *a: loss("matmul", *a), argnums=(0, 1, 2))(
+        pts, rot, tr)
     g_x = jax.grad(lambda *a: loss("xla", *a), argnums=(0, 1, 2))(
-        fx["points"], fx["rotation"], fx["translation"])
-    for a, b in zip(g_b, g_x):
+        pts, rot, tr)
+    for a, b in zip(g_m, g_x):
         sc = max(float(jnp.max(jnp.abs(b))), 1.0)
         np.testing.assert_allclose(np.asarray(a) / sc, np.asarray(b) / sc,
                                    atol=8e-6)
-
-
